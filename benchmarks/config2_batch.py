@@ -1,5 +1,5 @@
 """BASELINE config 2: 1024 concurrent n=4096 blocks, QBER sweep 1-5%,
-layered Pallas kernel on TPU (XLA fallback on CPU)."""
+layered XLA decoder."""
 import json, os, sys, time
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np, jax, jax.numpy as jnp
@@ -7,14 +7,10 @@ from qtpu.ldpc.codes import make_regular_code
 from qtpu.ldpc.encode import make_batch_encoder
 from qtpu.ldpc.decode import make_batch_decoder, channel_llr
 
-on_tpu = jax.devices()[0].platform != "cpu"
+dev = jax.devices()[0]
 code = make_regular_code(4096)
-B = 1024 if on_tpu else 32
-if on_tpu:
-    from qtpu.ldpc.pallas_bp import make_pallas_decoder
-    dec = make_pallas_decoder(code, max_iters=60, alg="layered")
-else:
-    dec = make_batch_decoder(code, max_iters=60, alg="layered")
+B = 1024
+dec = make_batch_decoder(code, max_iters=60, alg="layered")
 enc = make_batch_encoder(code)
 rng = np.random.default_rng(0)
 out = []
@@ -25,7 +21,7 @@ for q in (0.01, 0.02, 0.03, 0.04, 0.05):
     llr = jax.device_put(np.asarray(channel_llr(jnp.asarray(bob), q)))
     res = dec(llr, syn); res.bits.block_until_ready()
     t0 = time.perf_counter()
-    reps = 20 if on_tpu else 2
+    reps = 20
     for _ in range(reps):
         res = dec(llr, syn)
     res.bits.block_until_ready()
@@ -35,4 +31,6 @@ for q in (0.01, 0.02, 0.03, 0.04, 0.05):
     out.append({"qber": q, "gbit_s": round(B * code.n / dt / 1e9, 3),
                 "iters_mean": round(float(iters.mean()), 2),
                 "iters_p99": int(np.percentile(iters, 99)), "fer": fer})
-print(json.dumps({"config": 2, "batch": B, "sweep": out}))
+print(json.dumps({"config": 2, "batch": B, "sweep": out,
+                  "device": {"platform": dev.platform, "kind": dev.device_kind,
+                             "count": len(jax.devices())}}))

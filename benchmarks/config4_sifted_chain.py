@@ -18,21 +18,17 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from config4_full_chain import enable_compile_cache  # noqa: E402
-
-enable_compile_cache()
 
 
 def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
-                         blocks_per_window: int = 32) -> dict:
+                         blocks_per_window: int = 32,
+                         n: int = 65536) -> dict:
     """Events-to-key chain at EC-production block length (n=65536).
 
-    pair_rate=1e7/s is the coincidence-sifting stage's measured operating
-    regime (~30 M raw events/s through the batched matcher); the EC stage
-    (measured at >200 Mbit/s sifted on this chip) idles between windows —
-    the sift stage IS the chain's bottleneck at today's matcher throughput
-    (round-4 verdict missing #2 recorded exactly this), so this number is
-    the honest events→final-key rate, not an EC benchmark."""
+    pair_rate=1e7/s is upstream qcrypto's entangled-pair regime.  The EC
+    stage idles between windows, so this number is the events→final-key
+    rate, not an EC benchmark.  blocks_per_window=32 (production: 128)
+    because host-side event generation is slow."""
     from qtpu.chain import AliceChain, BobChain, ChainConfig
     from qtpu.channel import EntangledPairSource
     from qtpu.link import make_direct_pair
@@ -40,7 +36,7 @@ def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
 
     window_s = 0.05
     cfg = ChainConfig(
-        pipeline=production_config(blocks_per_window=blocks_per_window,
+        pipeline=production_config(n=n, blocks_per_window=blocks_per_window,
                                    qber_test_bits=2048,
                                    stream_capacity_bits=1 << 25,
                                    drain_windows=4),
@@ -56,6 +52,7 @@ def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
     total_events = 0
     for w in range(sim_windows):
         ev = src.generate(rng, start_epoch=w)
+        true_offset = ev.true_offset_units
         base = np.int64(w) * span_units
         sa = (np.asarray(ev.alice.times[: ev.alice.count], np.int64) + base,
               ev.alice.detectors[: ev.alice.count])
@@ -82,6 +79,9 @@ def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
         bob.push_stream(*sb)
         pump()
     warm_events = sum(len(sa[0]) + len(sb[0]) for sa, sb in streams[:warm])
+    # Rates count only what the timed region produced.
+    sifted0 = bob.ec.ledger.sifted_bits
+    final0 = bob.ec.ledger.final_bits
 
     # Throughput mode: push GROUPS of sim windows between pumps so the
     # frame matcher sees full batches (~8 frames/dispatch) instead of the
@@ -105,18 +105,21 @@ def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
     ka = alice.ec.final_key_bits()
     kb = bob.ec.final_key_bits()
     assert np.array_equal(ka, kb), "final keys must agree"
-    sifted = bob.ec.ledger.sifted_bits
+    sifted = bob.ec.ledger.sifted_bits - sifted0
+    final = bob.ec.ledger.final_bits - final0
     return {
         "sim_windows": sim_windows - warm,
         "elapsed_s": round(dt, 3),
         "events_processed": total_events - warm_events,
         "chain_events_per_s": round((total_events - warm_events) / dt, 0),
-        "sifted_bits_total": int(sifted),
+        "sifted_bits_total": int(bob.ec.ledger.sifted_bits),
         "final_key_bits": int(len(ka)),
+        "keys_identical": bool(np.array_equal(ka, kb)),
         "sifted_bits_per_s_wall": round(sifted / dt, 0),
-        "chain_from_events_final_bits_per_s": round(len(ka) / dt, 0),
+        "chain_from_events_final_bits_per_s": round(final / dt, 0),
         "ec_windows": int(bob.ec.window_id),
         "acquired_offset_units": int(bob.offset),
+        "true_offset_units": int(true_offset),
         "mean_frame_events": round((total_events - warm_events)
                                    / max(1, len(bob.sift_stats)), 0),
         "pair_rate_hz": pair_rate,
@@ -125,14 +128,12 @@ def measure_sifted_chain(sim_windows: int = 120, pair_rate: float = 1e7,
 
 
 def main() -> None:
+    from qtpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
     sim_windows = int(sys.argv[1]) if len(sys.argv) > 1 else 120
     pair_rate = float(sys.argv[2]) if len(sys.argv) > 2 else 1e7
     out = measure_sifted_chain(sim_windows, pair_rate)
     print(json.dumps(out))
-    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "out",
-                        "sifted_chain_r05.json")
-    with open(path, "w") as f:
-        json.dump(out, f, indent=1)
 
 
 if __name__ == "__main__":

@@ -1,9 +1,12 @@
 """BASELINE config 5: time-windowed stream over >=2 processes with a global
-leaked-bit psum ledger (jax.distributed on localhost)."""
+leaked-bit psum ledger (jax.distributed on localhost).
+
+Both processes run on the CPU: a JAX process reserves most of a card's
+memory when it starts, so two processes cannot share one card."""
 import json, os, subprocess, sys
 here = os.path.dirname(os.path.abspath(__file__))
 worker = os.path.join(os.path.dirname(here), "tests", "multihost_worker.py")
-env = dict(os.environ, PYTHONPATH="", JAX_PLATFORMS="cpu")
+env = dict(os.environ, JAX_PLATFORMS="cpu")
 procs = [subprocess.Popen([sys.executable, worker, str(i), "19911"],
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True, env=env) for i in range(2)]

@@ -3,7 +3,7 @@
 Hill-climbs qtpu.ldpc.design.optimize_profile at nb=32 for each production
 mb (16, 13, 11, 9, 7, 5, 4), starting from BOTH existing profiles, and
 prints the best profile + DE threshold per rung.  Offline (pure NumPy) —
-empirical FER validation on TPU is a separate step (profile_sweep_prod.py).
+empirical FER validation on the GPU is a separate step (profile_sweep_prod.py).
 
 Usage: python benchmarks/design_opt.py [mb ...]
 """

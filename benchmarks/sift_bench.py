@@ -19,9 +19,6 @@ import time
 import numpy as np
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from config4_full_chain import enable_compile_cache  # noqa: E402
-
-enable_compile_cache()
 
 
 def synth_frames(rng, F, n_events, span, pair_frac=0.5, window=40):
@@ -43,9 +40,10 @@ def synth_frames(rng, F, n_events, span, pair_frac=0.5, window=40):
 def main() -> None:
     log2_ev = int(sys.argv[1]) if len(sys.argv) > 1 else 19
     F = int(sys.argv[2]) if len(sys.argv) > 2 else 8
-    import jax
     import jax.numpy as jnp
     from qtpu import sift
+    from qtpu.compile_cache import enable_compile_cache
+    enable_compile_cache()
 
     n_events = 1 << log2_ev
     span = sift.MAX_SPAN - 1      # one full 67 ms frame

@@ -1,6 +1,6 @@
-"""qtpu — TPU-native QKD post-processing framework.
+"""qtpu — accelerator-native QKD post-processing framework.
 
-A brand-new JAX/XLA/Pallas implementation of the full quantum-key-distribution
+A brand-new JAX/XLA implementation of the full quantum-key-distribution
 post-processing signal chain covered by the reference stack
 ``JarryChou/qcrypto-ldpc`` (see SURVEY.md for the structural analysis and its
 provenance caveats):
@@ -16,11 +16,11 @@ provenance caveats):
 - leakage accounting + final-key framing    (reference: ecd2.c processblock manager)
 - two-party classical channel               (reference: remotecrypto/transferd.c)
 
-Design is TPU-first: quasi-cyclic LDPC codes so belief-propagation message
-permutations become circulant rolls (no gathers), batched decodes over a
-``blocks`` mesh axis via shard_map, Pallas fused min-sum kernels with messages
-resident in VMEM, Toeplitz hashing on the MXU / batched rFFT, and psum/ppermute
-collectives for cross-shard accounting and streaming-hash halos.
+Design is accelerator-first: quasi-cyclic LDPC codes so belief-propagation
+message permutations become circulant rolls (no gathers), batched decodes
+over a ``blocks`` mesh axis via shard_map, Toeplitz hashing as a batched
+rFFT and the verify hash as an int8 matmul, and psum collectives for
+cross-shard accounting and the streaming hash.
 """
 
 __version__ = "0.1.0"

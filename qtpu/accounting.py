@@ -4,7 +4,7 @@ Reference capability: the global leaked-bit counters ecd2 keeps in process
 globals, and the final-length formula applied before privacy amplification
 (SURVEY.md §3 #10/#14, §4.3 "bookkeeping", Appendix B).
 
-TPU-first design: the ledger is a small vector of named counters so that in a
+Accelerator-first design: the ledger is a small vector of named counters so that in a
 sharded run the global ledger is literally ``jax.lax.psum`` of the per-shard
 ledgers over the mesh (BASELINE config 5: "global leaked-bit psum
 accounting") — see qtpu.parallel.

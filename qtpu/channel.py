@@ -1,6 +1,6 @@
 """Channel and event-stream simulators.
 
-Reference capability: the hardware layer is out of scope for a TPU build
+Reference capability: the hardware layer is out of scope for this framework
 (SURVEY.md §3 #1-2); it is replaced by simulators that generate the same
 artifacts the reference's timestamp cards produced:
 

@@ -1,7 +1,7 @@
 """Configuration system: one dataclass tree, JSON round-trip, CLI overrides.
 
 Reference capability: per-daemon getopt flags + compile-time constants in
-``definitions/defaultdefinitions.h`` (SURVEY.md §3 #18, §6.6).  The TPU build
+``definitions/defaultdefinitions.h`` (SURVEY.md §3 #18, §6.6).  This framework
 centralizes them: defaults reproduce the BASELINE configs; any leaf can be
 overridden with ``--set dotted.path=value``.
 """

@@ -6,7 +6,7 @@ epochs of 2^29 ns (~0.537 s); every stream artifact is addressed by a 32-bit
 epoch number; events are 64-bit records (49-bit timestamp @ 125 ps + 4-bit
 detector id).
 
-TPU-first design: epochs become *array windows*, not files — a window of
+Accelerator-first design: epochs become *array windows*, not files — a window of
 events is a struct-of-arrays (times, detectors) with static capacity and a
 validity count, so the whole sifting chain stays jit-compatible.  Keys are
 bit-packed into uint32 words for host transport and hashing.

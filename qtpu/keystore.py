@@ -1,7 +1,7 @@
 """Final-key artifact store — the type-7 stream equivalent.
 
 Reference capability: the epoch-named type-7 final-key files ecd2 writes
-after privacy amplification (SURVEY.md Appendix A).  The TPU build's unit is
+after privacy amplification (SURVEY.md Appendix A).  This framework's unit is
 the (window, block) pair rather than the epoch, and keys append to one
 binary stream file with self-describing records instead of one file per
 epoch (the filesystem-as-queue mechanism is replaced by the in-process

@@ -2,7 +2,7 @@
 
 Reference capability: the ``-ldpc`` fork's one-way syndrome reconciliation
 replacing Cascade/BICONF inside ``errorcorrection/`` (SURVEY.md §3 #13, §4.4).
-Everything here is a fresh TPU-first design: quasi-cyclic codes so that the
+Everything here is a fresh accelerator-first design: quasi-cyclic codes so that the
 check-side <-> variable-side message permutation is a circulant roll.
 """
 

@@ -4,7 +4,7 @@ Reference capability: parity-check-matrix construction/loading and the
 puncture/shorten rate ladder of the ``-ldpc`` fork (SURVEY.md §3 #13, §8 step 4;
 BASELINE.json configs 1 and 3).
 
-TPU-first design choice (NOT how a CPU C implementation would store H):
+Accelerator-first design choice (NOT how a CPU C implementation would store H):
 the code is **quasi-cyclic (QC)** — H is an ``mb x nb`` grid of ``z x z``
 circulant permutation blocks.  Check node ``(i, zc)`` touches variable
 ``(j, (zc + shift) % z)`` for every base-graph edge ``(i, j, shift)``.  The
@@ -15,9 +15,9 @@ in BP — becomes a circular roll along the ``z`` axis:
     var_view[e]   = roll(chk_view[e], +shift_e)   # axis = z
     chk_view[e]   = roll(var_view[e], -shift_e)
 
-Rolls are static-shape, gather-free, VPU-friendly, and supported directly in
-Pallas (``pltpu.roll``).  This is the same reason 5G-NR and 802.11 LDPC codes
-are QC — the structure is hardware-native, and a TPU is hardware.
+Rolls are static-shape, gather-free slices that XLA fuses into elementwise
+kernels.  This is the same reason 5G-NR and 802.11 LDPC codes are QC — the
+structure is hardware-native.
 
 All arrays describing a code are tiny (base graph has ~50 edges); per-block
 work tensors are shaped ``(num_base_edges, z, batch)``.
@@ -658,7 +658,7 @@ def irregular_profile_v2(nb: int, mb: int) -> list[int]:
     pushed to the cycle-safety limit (mb - 1 columns, capped at nb/2), a
     6-column degree-4 shoulder, a 3-column high-degree tail, rest degree 3.
 
-    Measured on TPU vs `irregular_profile` at n=16384, nb=32, layered
+    Measured vs `irregular_profile` at n=16384, nb=32, layered
     min-sum, FER<=5%: mb=9 rung ceiling 3.00% -> 3.25% QBER at comparable
     iterations.  Used by the "native2" ladder family; "native" keeps the
     legacy profile because its frozen calibration was measured with it.

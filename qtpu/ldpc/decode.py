@@ -1,10 +1,10 @@
 """Batched belief-propagation decoding in pure JAX (XLA path).
 
 Reference capability: Bob's iterative BP decode loop — "THE hot loop" of the
-``-ldpc`` fork (SURVEY.md §4.4) — redesigned for TPU:
+``-ldpc`` fork (SURVEY.md §4.4) — redesigned for an accelerator:
 
 - **DP over blocks**: the batch of independent key blocks rides the trailing
-  (lane) axis of every tensor; 1024 concurrent n=4096 decodes are one program
+  axis of every tensor; 1024 concurrent n=4096 decodes are one program
   (BASELINE.json config 2).
 - **QC structure**: the check-major ↔ variable-major edge permutation is a
   static circulant roll per base edge (~48 rolls/iteration), never a gather.
@@ -16,6 +16,16 @@ Reference capability: Bob's iterative BP decode loop — "THE hot loop" of the
 Bit-exactness contract with qtpu.ldpc.golden (min-sum): identical float32
 operation order — sequential slot accumulation, "first minimal slot wins",
 sign(0) = +1.  Tests assert decoded bits and iteration counts match exactly.
+
+FMA: XLA contracts a multiply feeding an add or subtract into one fused
+multiply-add, which rounds once where NumPy rounds twice.  The golden check
+message is alpha * sign * min(mags); with that order the message update
+``new - c2v`` contracts, and posterior values drift from the golden model's
+by an ulp from the second sweep on.  Here alpha scales each magnitude BEFORE
+the leave-one-out min: rounding is monotone, so min(round(alpha * m)) ==
+round(alpha * min(m)) value for value, and what reaches the following
+subtract or add is a product of ±1 factors — exact, so a contraction cannot
+change it.
 """
 
 from __future__ import annotations
@@ -131,14 +141,14 @@ def make_batch_decoder(code: QCCode, max_iters: int = 50, alg: str = "minsum",
             slots = row_edges[i]
             msgs = [v2c[e] for e in slots]
             signs = [_sign(m) for m in msgs]
-            mags = [jnp.abs(m) for m in msgs]
+            mags = [alpha_f * jnp.abs(m) for m in msgs]   # FMA: module doc
             sign_all = signs[0]
             for sgn in signs[1:]:
                 sign_all = sign_all * sgn
             others = _leave_one_out_min(mags)
             coset = syn_sign[i]
             for k, e in enumerate(slots):
-                out[e] = alpha_f * coset * sign_all * signs[k] * others[k]
+                out[e] = coset * sign_all * signs[k] * others[k]
         return jnp.stack(out)
 
     def _check_update_sumprod(v2c, syn_sign):
@@ -256,14 +266,14 @@ def _make_layered_decoder(code: QCCode, max_iters: int, alpha: float):
             worst = row_min if worst is None else jnp.minimum(worst, row_min)
             msgs = [t_chk[k] - c2v_list[e] for k, e in enumerate(slots)]
             signs = [_sign(m) for m in msgs]
-            mags = [jnp.abs(m) for m in msgs]
+            mags = [alpha_f * jnp.abs(m) for m in msgs]   # FMA: module doc
             sign_all = signs[0]
             for sgn in signs[1:]:
                 sign_all = sign_all * sgn
             others = _leave_one_out_min(mags)
             coset = syn_sign[i]
             for k, e in enumerate(slots):
-                new = alpha_f * coset * sign_all * signs[k] * others[k]
+                new = coset * sign_all * signs[k] * others[k]
                 delta = new - c2v_list[e]
                 c2v_list[e] = new
                 j = edge_col[e]

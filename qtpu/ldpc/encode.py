@@ -3,9 +3,9 @@
 Reference capability: Alice's ``syndrome = H · key`` sparse GF(2) mat-vec in
 the ``-ldpc`` fork's encode path (SURVEY.md §4.4 "encode hot loop").
 
-TPU-first design: with a quasi-cyclic code, the sparse mat-vec is a static
-sequence of circulant rolls + XORs — no gathers, no sparse formats.  Batch is
-the trailing (lane) axis.
+Accelerator-first design: with a quasi-cyclic code, the sparse mat-vec is a
+static sequence of circulant rolls + XORs — no gathers, no sparse formats.
+Batch is the trailing axis.
 """
 
 from __future__ import annotations

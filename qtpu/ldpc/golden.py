@@ -4,13 +4,13 @@ The reference binary is absent (SURVEY.md §0), so this module IS the golden
 model the accelerated decoders must match (SURVEY.md §5.1): syndrome encode
 and belief-propagation decoding (normalized min-sum and sum-product) with the
 syndrome-coset trick for reconciliation, in float32 with a fixed, documented
-operation order so the JAX/Pallas decoders can match it **bit-exactly** for
-min-sum (SURVEY.md Appendix B).
+operation order so the JAX decoders can match it **bit-exactly** for min-sum
+(SURVEY.md Appendix B).
 
 Reference capability: the BP decoder of the ``-ldpc`` fork
 (``errorcorrection/`` LDPC path, SURVEY.md §4.4).
 
-Operation-order contract (shared with qtpu.ldpc.decode / pallas_bp):
+Operation-order contract (shared with qtpu.ldpc.decode):
   * slot reductions (variable sums, check sign/min) accumulate sequentially
     over the padded slot axis, slot 0 first;
   * the min-tie convention is "first minimal slot wins" (argmin semantics);
@@ -214,7 +214,7 @@ def _decode_layered(code: QCCode, llr: np.ndarray, syndrome: np.ndarray,
                     max_iters: int, alpha: float) -> DecodeResult:
     """Row-layered normalized min-sum (the golden model for alg="layered").
 
-    Operation-order contract shared with the JAX/Pallas layered decoders:
+    Operation-order contract shared with the JAX layered decoder:
     layers sweep base rows in ascending order; within a layer the slot order
     is `row_edges[i]` order; totals update immediately via delta rolls.
 
@@ -223,12 +223,11 @@ def _decode_layered(code: QCCode, llr: np.ndarray, syndrome: np.ndarray,
     when the row is processed (after rows < i of the same sweep, before
     row i's own update).  A sweep where every row passed declares
     convergence with the END-of-sweep hard decision.  This removes the
-    separate per-sweep syndrome pass (a third of the rolls — measured ~35%
-    of Pallas iteration cost) at the price of a *rare* optimistic flag: a
-    later row's update can flip an earlier row's parity within the
-    declaring sweep, so H·x̂ = s is NOT re-verified here — the pipeline's
-    per-block verification hash catches such blocks exactly like any other
-    decode failure (they fail verification and retry).  An initial exact
+    separate per-sweep syndrome pass (a third of the rolls) at the price of
+    a *rare* optimistic flag: a later row's update can flip an earlier
+    row's parity within the declaring sweep, so H·x̂ = s is NOT re-verified
+    here — the pipeline's per-block verification hash catches such blocks
+    exactly like any other decode failure (they fail verification and retry).  An initial exact
     syndrome check still short-circuits already-clean inputs at
     iterations=0.
     """

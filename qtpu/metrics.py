@@ -1,7 +1,7 @@
 """Structured metrics, logging, and profiling hooks.
 
 Reference capability: stderr debug logging + the `getrate` count-rate tools
-(SURVEY.md §3 #9/#17, §6.5).  The TPU build replaces both with structured
+(SURVEY.md §3 #9/#17, §6.5).  This framework replaces both with structured
 JSONL metrics — exactly the judge's quantities (BASELINE.json: sifted bits,
 QBER, rate chosen, BP iteration histogram, FER, leaked bits, final bits/s) —
 plus `jax.profiler` trace helpers for kernel-level inspection (§6.1).

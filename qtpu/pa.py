@@ -5,7 +5,7 @@ Reference capability: ``errorcorrection/algorithms/priv_amp.c`` (SURVEY.md §3
 with a random binary Toeplitz(-equivalent) matrix whose seed is exchanged
 in-protocol.
 
-TPU-first design (BASELINE north-star: "Toeplitz hash as an FFT-based
+Accelerator-first design (BASELINE north-star: "Toeplitz hash as an FFT-based
 multiply"):
 
 A Toeplitz matrix T ∈ GF(2)^{m×n} built from bits t_0..t_{m+n-2}

@@ -2,7 +2,7 @@
 
 Reference analog: the reference stack is serial single-core C; its only
 "distribution" is the Unix pipeline (SURVEY.md §3 parallelism table).  All
-parallelism here is the TPU build's own design, anchored in BASELINE.json:
+parallelism here is this framework's own design, anchored in BASELINE.json:
 
 - **DP over key blocks** ("blocks" mesh axis): each device decodes its shard
   of the batch; no communication inside the decode (SURVEY.md §4.4 — this is
@@ -13,7 +13,7 @@ parallelism here is the TPU build's own design, anchored in BASELINE.json:
   "overlap boundaries exchanged via collective permutes" — (a) a `ppermute`
   halo exchange re-homing boundary-crossing PA units, vs (b) a distributed
   global hash whose per-shard partial convolutions combine with an integer
-  `psum` over ICI — the build ships (b) (`sharded_stream_toeplitz` /
+  `psum` across devices — the build ships (b) (`sharded_stream_toeplitz` /
   `make_stream_pa`).  The psum form needs no halo bookkeeping, keeps every
   shard's FFT independent, moves exactly m output counts per shard (vs a
   seed-length halo), and is bit-exact against the golden Toeplitz; a halo
@@ -23,8 +23,9 @@ parallelism here is the TPU build's own design, anchored in BASELINE.json:
   (BASELINE config 5: "global leaked-bit psum accounting").
 
 Multi-host entry: `init_distributed()` wraps jax.distributed.initialize; all
-code below only sees the global mesh, so a 2-host pod slice and the 8-device
-forced-CPU test mesh run identical programs (SURVEY.md §5.4).
+code below only sees the global mesh, so a multi-card host, several hosts
+and the 8-device forced-CPU test mesh run identical programs (SURVEY.md
+§5.4).
 """
 
 from __future__ import annotations
@@ -71,21 +72,16 @@ def psum_ledger(local_vec: jax.Array, axis: str) -> jax.Array:
 
 
 def make_sharded_decoder(code, mesh: Mesh, max_iters: int = 50,
-                         alg: str = "minsum", use_pallas: bool = False,
-                         batch_tile: int = 128):
+                         alg: str = "minsum"):
     """DP decode: shard the block batch over the mesh's first axis.
 
     Returns a jitted fn (llr (B, n), syndrome (B, m)) -> BatchDecodeResult
     with B sharded; every device runs the same single-device decoder on its
     shard (no collectives in the hot loop, by design).
     """
+    from qtpu.ldpc.decode import make_batch_decoder
     axis = mesh.axis_names[0]
-    if use_pallas:
-        from qtpu.ldpc.pallas_bp import make_pallas_decoder
-        local = make_pallas_decoder(code, max_iters, batch_tile=batch_tile)
-    else:
-        from qtpu.ldpc.decode import make_batch_decoder
-        local = make_batch_decoder(code, max_iters, alg)
+    local = make_batch_decoder(code, max_iters, alg)
 
     @jax.jit
     @functools.partial(
@@ -113,7 +109,7 @@ def sharded_stream_toeplitz(t_bits: jax.Array, x_local: jax.Array, m: int,
     The stream x (length N = D*L) is sharded as x_local (L,) per device;
     t_bits is the full (m + N - 1,) Toeplitz seed (replicated).  Each shard
     convolves its window with the relevant slice of t, then the m-bit output
-    combines across shards with an XOR-psum over ICI:
+    combines across shards with an XOR-psum over the mesh:
 
         (T x)_i = XOR_s  conv(t_slice_s, x_s)[i]        i in [0, m)
 
@@ -149,7 +145,7 @@ def make_stream_pa(mesh: Mesh, n_stream: int, m: int):
 
     One Toeplitz seed spans the whole key stream; the stream shards over the
     mesh's first axis, each device convolves its window with its slice of the
-    seed, and the m-bit output combines with an integer psum over ICI
+    seed, and the m-bit output combines with an integer psum over the mesh
     (BASELINE.json:5 "streaming across block boundaries via collective
     permute/psum").  Bit-exact vs qtpu.pa.toeplitz_hash_golden.
 

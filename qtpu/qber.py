@@ -5,7 +5,7 @@ Reference capability: ``errorcorrection/algorithms/qber_estim.c`` (SURVEY.md
 exchange them, count mismatches → initial error estimate that seeds the EC
 rate choice; every disclosed bit feeds the leakage ledger.
 
-TPU-build design beyond the reference:
+Design beyond the reference:
 
 - Test positions derive from the protocol PRNG (qtpu.prng) so both parties
   select identical subsets with zero coordination.

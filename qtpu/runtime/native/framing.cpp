@@ -4,7 +4,7 @@
 // (remotecrypto/chopper.c, SURVEY.md §3 #3-4, Appendix A): hardware emits
 // 64-bit raw event records — 49-bit timestamp in 125 ps units + 4-bit
 // detector id — which the choppers split into epoch-addressed streams.
-// The TPU build keeps events in arrays; this library is the fast host-side
+// The framework keeps events in arrays; this library is the fast host-side
 // codec for recorded event files and the epoch boundary scan, so ingest of
 // multi-GB recordings never bottlenecks in Python.
 //

@@ -1,13 +1,10 @@
 """Fused per-window device programs for the reconciliation pipeline (v2.1).
 
-Round-2 measured the decode kernel at multi-Gbit/s while the chain around it
-ran 360x slower: every window serialized syndromes through the host, framed
-payload in host NumPy and re-uploaded it, and fetched PA output eagerly —
-~10 host<->device transfers per window on a link with ~26 ms fixed cost per
-transfer (round-2 verdict missing #1).  v2 moves the WHOLE per-window data
-path on device; v2.1 additionally shapes the framing for the TPU's strengths
-(measured: a (B,P) random gather costs ~59 ms on-chip while elementwise maps
-and small scatters are ~3-9 ms):
+An earlier chain serialized syndromes through the host, framed payload in
+host NumPy and re-uploaded it, and fetched PA output eagerly — about ten
+host<->device transfers per window.  v2 moves the WHOLE per-window data path
+on device; v2.1 additionally frames with contiguous slices, elementwise maps
+and small scatters instead of a (B, P) random gather:
 
   * The sifted stream lives in a device arena (qtpu.stream.DeviceStream).
     A window consumes a CONSTANT B*P bits and framing is a pure
@@ -133,9 +130,8 @@ def _toeplitz_hash(t_bits, x_bits, m):
     Even batches pack BLOCK PAIRS into complex signals (z = even + i*odd;
     the two real spectra split by conjugate symmetry, the two real convs
     ride one inverse as real/imag parts): 2 complex transforms at B/2 rows
-    replace 3 real transforms at B rows — the FFT is HBM-bound on this
-    chip (~90 GB/s measured achievable), and this cuts its traffic ~1/3
-    (measured 13.2 -> 9.2 ms at B=128, L=2^17, integer-identical output).
+    replace 3 real transforms at B rows, about a third less FFT traffic,
+    with integer-identical output.
 
     Exactness at production shapes (L = 2^17, f32) is pinned by
     tests/test_pa.py production-shape golden rows and the integer-margin
@@ -168,6 +164,14 @@ def _toeplitz_hash(t_bits, x_bits, m):
     return (jnp.round(seg).astype(jnp.int32) & 1).astype(jnp.uint8)
 
 
+def _verify_hash(t_mat, x_bits):
+    """(P, Vh) x (b, P) -> (b, Vh) GF(2) Toeplitz hash via an int8 matmul
+    (exact int32 accumulation — sums <= P < 2^31 — mod 2 at the end)."""
+    acc = jax.lax.dot(x_bits.astype(jnp.int8), t_mat,
+                      preferred_element_type=jnp.int32)
+    return (acc & 1).astype(jnp.uint8)
+
+
 def toeplitz_margin(t_bits, x_bits, m) -> float:
     """max |conv − round(conv)| of the f32 FFT path over the extracted
     segment — the integer-exactness margin the 2-universal-hash security
@@ -194,19 +198,6 @@ class WindowPrograms(NamedTuple):
     k_pb: int       # STATIC max QBER test bits per block (runtime k <= this)
     s_max: int      # STATIC max disclosed-shortening bits per block
     retry_bits: int  # retry disclosure bits per block (static)
-
-
-def _pick_decoder(code: QCCode, max_iters: int, alg: str, batch: int):
-    """Pallas VMEM-resident kernel on TPU (the production path — ~35x the
-    XLA decoder, round-1 measurements); XLA elsewhere or when the batch
-    doesn't tile."""
-    if alg in ("minsum", "layered") and jax.devices()[0].platform == "tpu":
-        from qtpu.ldpc.pallas_bp import default_batch_tile, make_pallas_decoder
-        bt = default_batch_tile(code)
-        if batch % bt == 0:
-            return make_pallas_decoder(code, max_iters, alg=alg,
-                                       batch_tile=bt)
-    return make_batch_decoder(code, max_iters, alg)
 
 
 def make_window_programs(code: QCCode, pay_pos: np.ndarray,
@@ -242,7 +233,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         if len(punct_pos) else np.zeros(0, np.int64)
     short_cols = np.unique(np.asarray(short_pos, np.int64) // code.z) \
         if len(short_pos) else np.zeros(0, np.int64)
-    decoder = _pick_decoder(code, max_iters, alg, B)
+    decoder = make_batch_decoder(code, max_iters, alg)
 
     edge_row = [int(x) for x in code.edge_row]
     edge_col = [int(x) for x in code.edge_col]
@@ -314,11 +305,9 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         """(b, P) payload slab: a contiguous reshape of the stream.
 
         The optimization barrier forces the slice to MATERIALIZE: without
-        it XLA fuses the dynamic_slice into every consumer kernel, each of
-        which then takes the WHOLE arena as an operand — measured 4.9 GB
-        of HBM traffic per window (the 134 MB arena re-read ~18x), ~15 ms
-        of the 19 ms bob program.  One 8 MB materialized slab makes every
-        consumer read 8 MB instead."""
+        it XLA may fuse the dynamic_slice into every consumer kernel, each
+        of which then takes the WHOLE 134 MB arena as an operand.  One 8 MB
+        materialized slab makes every consumer read 8 MB instead."""
         cursor = header[0].astype(jnp.int32)
         off = cursor + row0.astype(jnp.int32) * P
         flat = jax.lax.dynamic_slice(arena, (off,), (b * P,))
@@ -371,20 +360,12 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         over blocks needs no independence between blocks, and t is drawn
         from the protocol PRNG independently of the channel noise.  A
         shared seed turns the hash into one (B, P) x (P, Vh) int8 matmul
-        on the MXU with exact int32 accumulation (sums <= P < 2^31),
-        replacing Vh shifted VPU dot products (~2.4 ms -> ~0.1 ms per
-        window batch)."""
+        with exact int32 accumulation (sums <= P < 2^31), replacing Vh
+        shifted elementwise dot products."""
         t = _seed_rows(jax.random.fold_in(_wkey(header), TAG_VERIFY),
                        1, P + Vh - 1, jnp.uint32(0))[0]
         cols = [jax.lax.dynamic_slice_in_dim(t, j, P) for j in range(Vh)]
         return jnp.stack(cols, axis=1).astype(jnp.int8)
-
-    def _verify_hash(t_mat, x_bits):
-        """(P, Vh) x (b, P) -> (b, Vh) GF(2) Toeplitz hash via MXU int8
-        matmul (exact int32 accumulation, mod 2 at the end)."""
-        acc = jax.lax.dot(x_bits.astype(jnp.int8), t_mat,
-                          preferred_element_type=jnp.int32)
-        return (acc & 1).astype(jnp.uint8)
 
     def _build_codeword(payload, header, b, row0, punct_bits):
         """Assemble (b, n) codeword by COLUMN CONCATENATION (class-ordered
@@ -430,10 +411,9 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         # doubles as shortening.  Runtime counts mask via out-of-bounds
         # scatter (mode="drop").  The SHORT family's positions are
         # window-level (identical for every block), so its scatter runs in
-        # the TRANSPOSED layout — Sm full (b,)-lane ROW updates instead of
-        # b*Sm minor-axis element scatters (measured 14.4 -> 2.4 ms at
-        # Sm=15872; TPU element scatters serialize).  The per-block test
-        # family is only (b, Kq<=64) — the element scatter is fine there.
+        # the TRANSPOSED layout — Sm full (b,)-row updates instead of b*Sm
+        # minor-axis element scatters.  The per-block test family is only
+        # (b, Kq<=64) — the element scatter is fine there.
         rows = jnp.arange(b)[:, None]
         pos_s_m1 = jnp.where(jnp.arange(Sm) < s, pos_s, P)    # (Sm,)
         pos_t_m = jnp.where(jnp.arange(Kq)[None, :] < k, pos_t, P)
@@ -493,7 +473,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         bl = B // mesh.size
         leaked_per_block = code.m - int(len(punct_cols)) * z
         idx_f = {f: i for i, f in enumerate(LEDGER_FIELDS)}
-        shard_decoder = _pick_decoder(code, max_iters, alg, bl)
 
         @jax.jit
         @functools.partial(
@@ -509,8 +488,8 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
             row0 = (i * bl).astype(jnp.uint32)
             hat, rx_orig, rx_pin, pinmask, stats = _bob_core(
                 arena, header, test_alice, short_alice, syndromes,
-                exp_hashes, qmag, bl, row0, shard_decoder)
-            # Per-shard decode-stage ledger, psum'd over ICI — the global
+                exp_hashes, qmag, bl, row0, decoder)
+            # Per-shard decode-stage ledger, psum'd over the mesh — the global
             # leaked-bit accounting of BASELINE config 5 fed by the REAL
             # session quantities (puncture credit, inline disclosures).
             s = header[1].astype(jnp.int32)
@@ -560,7 +539,6 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         return hat_m, rx2, pin2, stats_m
 
     R = 8 if B >= 8 else B
-    small_decoder = _pick_decoder(code, max_iters, alg, R) if R < B else decoder
 
     @jax.jit
     def retry_small(arena, header, rx_orig, rx_pin, pinmask, hat, stats,
@@ -587,7 +565,7 @@ def make_window_programs(code: QCCode, pay_pos: np.ndarray,
         if punct_cols.size:
             parts.append(jnp.zeros((R, int(punct_cols.size), z), jnp.float32))
         llr = jnp.concatenate(parts, axis=1)[:, inv_order, :].reshape(R, n)
-        res = small_decoder(llr, syndromes[rows])
+        res = decoder(llr, syndromes[rows])
         hat_r = _extract_payload(res.bits, R)
         hat_r = jnp.where(pin2_rows, rx2_rows, hat_r)
         hashes = _verify_hash(_vmatrix(header), hat_r)

@@ -1,9 +1,13 @@
 """Test harness configuration (SURVEY.md §5).
 
-Tests run on CPU by default with 8 forced host devices so mesh/collective
-code paths (shard_map, psum, ppermute) execute exactly as on a pod slice
-(SURVEY.md §5.4).  Set QTPU_TEST_TPU=1 to run the TPU-marked hardware-parity
-tests on the real chip instead (slow first compile).
+Tests run on the CPU unless ``JAX_PLATFORMS`` says otherwise, with 8 forced
+host devices so mesh/collective code paths (shard_map, psum, ppermute)
+execute as on a multi-card host (SURVEY.md §5.4).  Tests marked ``gpu``
+need a card; on a GPU machine run them with
+
+    JAX_PLATFORMS=cuda,cpu python -m pytest tests/ -m gpu
+
+Everywhere else the ``gpu_device`` fixture skips them.
 """
 
 import os
@@ -11,26 +15,19 @@ import sys
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-# NOTE: `import pytest` already imports jax via a site plugin, so environment
-# variables are too late here — use jax.config, which applies as long as the
-# backend hasn't initialized yet.
-if os.environ.get("QTPU_TEST_TPU", "0") != "1":
-    import jax
+import jax  # noqa: E402
 
+if not os.environ.get("JAX_PLATFORMS"):
     jax.config.update("jax_platforms", "cpu")
-    jax.config.update("jax_num_cpu_devices", 8)
+jax.config.update("jax_num_cpu_devices", 8)
 
 import pytest  # noqa: E402
 
 
-def pytest_configure(config):
-    config.addinivalue_line("markers", "tpu: requires real TPU hardware (QTPU_TEST_TPU=1)")
-    config.addinivalue_line("markers", "slow: long-running test")
-
-
-def pytest_collection_modifyitems(config, items):
-    on_tpu = os.environ.get("QTPU_TEST_TPU", "0") == "1"
-    skip_tpu = pytest.mark.skip(reason="set QTPU_TEST_TPU=1 to run on hardware")
-    for item in items:
-        if "tpu" in item.keywords and not on_tpu:
-            item.add_marker(skip_tpu)
+@pytest.fixture
+def gpu_device():
+    """JAX's default device; skips the test unless it is a GPU."""
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        pytest.skip(f"needs a GPU; JAX's default device is {dev.platform}")
+    return dev

@@ -17,21 +17,19 @@ import jax
 
 jax.config.update("jax_platforms", "cpu")
 jax.config.update("jax_num_cpu_devices", 4)
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+from qtpu.compile_cache import enable_compile_cache  # noqa: E402
+
 # Persistent compile cache: the first collective's Gloo context init times
 # out (30 s) if the two processes' compile times diverge under host load;
 # cached compiles keep the rendezvous gap near zero.
-jax.config.update("jax_compilation_cache_dir",
-                  os.path.join(os.path.dirname(os.path.dirname(
-                      os.path.abspath(__file__))), ".jax_cache"))
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+enable_compile_cache()
 
 proc_id = int(sys.argv[1])
 port = int(sys.argv[2])
 
 jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                            num_processes=2, process_id=proc_id)
-
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np
 import jax.numpy as jnp

@@ -132,3 +132,52 @@ def test_layered_converges_faster_than_flooding(code, batch):
     la = make_batch_decoder(code, max_iters=60, alg="layered")(
         jnp.asarray(llr), jnp.asarray(syn))
     assert np.asarray(la.iterations).mean() < np.asarray(fl.iterations).mean()
+
+
+def _mixed_scenario(n, B, qbers, seed):
+    code = make_regular_code(n)
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, 2, (B, code.n)).astype(np.uint8)
+    noise = (rng.random((B, code.n))
+             < np.repeat(qbers, B // len(qbers))[:, None]).astype(np.uint8)
+    syn = np.stack([golden.encode_syndrome(code, k).reshape(-1) for k in keys])
+    llr = np.asarray(channel_llr(jnp.asarray(keys ^ noise), 0.03))
+    return code, llr, syn
+
+
+def _assert_matches_golden(code, llr, syn, alg, max_iters):
+    res = make_batch_decoder(code, max_iters=max_iters, alg=alg)(
+        jnp.asarray(llr), jnp.asarray(syn))
+    bits = np.asarray(res.bits)
+    iters = np.asarray(res.iterations)
+    conv = np.asarray(res.converged)
+    for b in range(llr.shape[0]):
+        g = golden.decode(code, llr[b].reshape(code.nb, code.z),
+                          syn[b].reshape(code.mb, code.z),
+                          max_iters=max_iters, alg=alg)
+        np.testing.assert_array_equal(bits[b], g.bits.reshape(-1))
+        assert iters[b] == g.iterations, f"block {b}"
+        assert bool(conv[b]) == g.converged, f"block {b}"
+
+
+@pytest.mark.parametrize("alg", ["minsum", "layered"])
+@pytest.mark.parametrize("scenario", [
+    # n=1024, 8 blocks of mixed difficulty: iteration counts differ inside
+    # the batch, and the 6% blocks exhaust max_iters unconverged.
+    (1024, 8, (0.005, 0.02, 0.04, 0.06), 0, 40),
+    # z=128 (n=2048), 16 blocks of mixed difficulty.
+    (2048, 16, (0.005, 0.02, 0.04, 0.06), 7, 30),
+], ids=["n1024", "z128"])
+def test_mixed_difficulty_bit_exact_vs_golden(scenario, alg):
+    n, B, qbers, seed, max_iters = scenario
+    code, llr, syn = _mixed_scenario(n, B, qbers, seed)
+    _assert_matches_golden(code, llr, syn, alg, max_iters)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 12])
+def test_decoder_serves_any_batch(batch):
+    """One XLA decoder serves every batch size the window programs use —
+    the full window, a mesh shard, the compact retry — including sizes that
+    are not a multiple of 8."""
+    code, llr, syn = _mixed_scenario(1024, 12, (0.01, 0.03, 0.05), 3)
+    _assert_matches_golden(code, llr[:batch], syn[:batch], "layered", 30)

@@ -125,19 +125,8 @@ def test_one_to_one_exact_at_wide_window_large_frame():
     best = np.asarray(r.bob_index)
     # Reference winners: for each Bob event, the (dist, index)-lex smallest
     # Alice claimant (candidate = each Alice event's nearest Bob event).
-    pos = np.searchsorted(tb, ta)
-    right = np.clip(pos, 0, na - 1)
-    left = np.clip(pos - 1, 0, na - 1)
-    take_left = np.abs(tb[left] - ta) <= np.abs(tb[right] - ta)
-    ref_best = np.where(take_left, left, right)
-    ref_dist = np.abs(tb[ref_best] - ta).astype(np.int64)
-    cand = ref_dist <= window
-    order = np.lexsort((np.arange(na), ref_dist, ref_best))
-    order = order[cand[order]]
-    first = np.ones(order.size, bool)
-    first[1:] = ref_best[order[1:]] != ref_best[order[:-1]]
-    ref_matched = np.zeros(na, bool)
-    ref_matched[order[first]] = True
+    ref_matched, ref_best = sift.coincidence_match_reference(ta, tb, 0,
+                                                             window)
     np.testing.assert_array_equal(matched, ref_matched)
     np.testing.assert_array_equal(best[matched], ref_best[matched])
     # Sanity: the wide window makes heavy multi-claim contention.
